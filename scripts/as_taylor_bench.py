@@ -15,10 +15,6 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0")
-
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -34,14 +30,13 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ["JAX_COMPILATION_CACHE_DIR"])
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+    from semiclassical_jax.hostcache import use_compile_cache
+
+    use_compile_cache()
 
     from __graft_entry__ import _as60_setup
-    from semiclassical_tpu.propagation.hk import _hk_scan_jit
-    from semiclassical_tpu.pytree import replace
+    from semiclassical_jax.propagation.hk import _hk_scan_jit
+    from semiclassical_jax.pytree import replace
 
     prop, pot = _as60_setup(ntraj=args.ntraj, dtype=jnp.float32,
                             traj_dtype="comp32")

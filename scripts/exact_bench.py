@@ -1,9 +1,10 @@
 # coding: utf-8
-"""TPU accuracy + throughput comparison: exact Morse map vs RK4 (comp32).
+"""Accuracy + throughput comparison: exact Morse map vs RK4 (comp32).
 
 Runs the 60-mode AS HK benchmark configuration twice with identical
-sampling (same key): once with the comp32 RK4 integrator (the round-3
-production mode) and once with the exact closed-form map, and reports
+sampling (same key): once with the comp32 RK4 integrator (the default
+precision mode for this model) and once with the exact closed-form map,
+and reports
 
 * per-step wall time / traj-steps/s at the requested batch size,
 * max |C_exact(t) - C_rk4(t)| over the horizon (the two differ by RK4's
@@ -26,11 +27,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main():
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ.get("JAX_COMPILATION_CACHE_DIR",
-                                     "/root/.jax_cache"))
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+    from semiclassical_jax.hostcache import use_compile_cache
+
+    use_compile_cache()
 
     import jax.numpy as jnp
 

@@ -7,7 +7,7 @@ The unit of work is the reference's production ML-PES dynamics loop
 (reference cli.py:401-436 with MolecularGDMLPotential): one RK4 step =
 4 batched sGDML energy/gradient/Hessian evaluations + the dense (n, d, d)
 monodromy update + HK prefactor + both observables. Default precision is
-the TPU production mixed mode (f64 E/grad + f32 Hessian via `hess_dtype`,
+the mixed mode (f64 E/grad + f32 Hessian via `hess_dtype`,
 f64 trajectories, f32 algebra) — the configuration validated to 1e-4 in
 tests/test_precision.py.
 
@@ -19,10 +19,6 @@ import json
 import os
 import sys
 import time
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0")
 
 import numpy as np
 
@@ -36,7 +32,7 @@ def main():
     ap.add_argument("--ntraj", type=int, default=2048)
     ap.add_argument("--nt", type=int, default=100)
     ap.add_argument("--f64", action="store_true",
-                    help="full-f64 GDML (emulated on TPU) instead of the "
+                    help="full-f64 GDML instead of the "
                          "mixed hess_dtype mode")
     ap.add_argument("--taylor-every", type=int, default=1,
                     help="re-expansion window length (taylor mode)")
@@ -52,15 +48,14 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ["JAX_COMPILATION_CACHE_DIR"])
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+    from semiclassical_jax.hostcache import use_compile_cache
 
-    from semiclassical_tpu.io.fchk import FormattedCheckpointFile
-    from semiclassical_tpu.potentials import MolecularGDMLPotential, minimize
-    from semiclassical_tpu.propagation import HermanKlukPropagator
-    from semiclassical_tpu.propagation.hk import _hk_scan_jit
+    use_compile_cache()
+
+    from semiclassical_jax.io.fchk import FormattedCheckpointFile
+    from semiclassical_jax.potentials import MolecularGDMLPotential, minimize
+    from semiclassical_jax.propagation import HermanKlukPropagator
+    from semiclassical_jax.propagation.hk import _hk_scan_jit
 
     model = np.load(os.path.join(
         REF_DATA, "GDML",

@@ -15,10 +15,6 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0")
-
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -35,16 +31,15 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ["JAX_COMPILATION_CACHE_DIR"])
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+    from semiclassical_jax.hostcache import use_compile_cache
 
-    from semiclassical_tpu.gdml import GDMLParams, gdml_forward
-    from semiclassical_tpu.io.fchk import FormattedCheckpointFile
-    from semiclassical_tpu.potentials import MolecularGDMLPotential
-    from semiclassical_tpu.propagation.eom import rk4_step
-    from semiclassical_tpu.propagation.state import TrajState
+    use_compile_cache()
+
+    from semiclassical_jax.gdml import GDMLParams, gdml_forward
+    from semiclassical_jax.io.fchk import FormattedCheckpointFile
+    from semiclassical_jax.potentials import MolecularGDMLPotential
+    from semiclassical_jax.propagation.eom import rk4_step
+    from semiclassical_jax.propagation.state import TrajState
 
     model = np.load(os.path.join(
         REF_DATA, "GDML",
@@ -142,7 +137,7 @@ def main():
     timed("rk4_taylor", full, (state0, jnp.zeros(())))
 
     # reference point: step-mode rk4_step (4 grads + 1 hess)
-    from semiclassical_tpu.pytree import replace
+    from semiclassical_jax.pytree import replace
     pot_step = replace(pot, hessian_eval="step")
 
     def full_step(c):

@@ -14,10 +14,6 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0")
-
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -34,22 +30,21 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ["JAX_COMPILATION_CACHE_DIR"])
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+    from semiclassical_jax.hostcache import use_compile_cache
 
-    from semiclassical_tpu.io.fchk import FormattedCheckpointFile
-    from semiclassical_tpu.potentials import MolecularHarmonicPotential
-    from semiclassical_tpu.propagation import HermanKlukPropagator
-    from semiclassical_tpu.pytree import replace
+    use_compile_cache()
+
+    from semiclassical_jax.io.fchk import FormattedCheckpointFile
+    from semiclassical_jax.potentials import MolecularHarmonicPotential
+    from semiclassical_jax.propagation import HermanKlukPropagator
+    from semiclassical_jax.pytree import replace
 
     with open(os.path.join(EXAMPLES, "opt_freq_s0.fchk")) as f:
         s0 = FormattedCheckpointFile(f)
     with open(os.path.join(EXAMPLES, "opt_freq_s1.fchk")) as f:
         s1 = FormattedCheckpointFile(f)
     pot = MolecularHarmonicPotential.from_fchk(s0, s1)
-    # the CLI's mixed-mode contraction dtype (BASELINE.md round-3 gain)
+    # the CLI's mixed-mode contraction dtype
     pot = replace(pot, contract_dtype="float32")
     x0, Gamma0, zpe = s1.vibrational_groundstate()
 

@@ -1,11 +1,9 @@
 # coding: utf-8
 """Single-chip perf ablation of the HK step (60-mode AS flagship config).
 
-Dissects the per-step cost into its parts (the round-1 profile: det+rk4
-together cost ~4x det-only + rk4-only — a scheduling/memory pathology
-worth isolating before optimizing kernels blind).
+Dissects the per-step cost into its parts (det, observables, RK4).
 
-Run one variant per process (clean HBM) on the real TPU:
+Run one variant per process (clean device memory) on the GPU:
 
     python scripts/perf_ablation.py --variant full --ntraj 32768 --nt 20
 
@@ -26,10 +24,6 @@ import json
 import os
 import sys
 import time
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0")
 
 import numpy as np
 
@@ -52,14 +46,13 @@ def main():
     import jax.numpy as jnp
     from jax import lax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ["JAX_COMPILATION_CACHE_DIR"])
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+    from semiclassical_jax.hostcache import use_compile_cache
+
+    use_compile_cache()
 
     from __graft_entry__ import _as60_setup
-    from semiclassical_tpu.propagation.eom import rk4_step
-    from semiclassical_tpu.propagation.hk import (hk_observables,
+    from semiclassical_jax.propagation.eom import rk4_step
+    from semiclassical_jax.propagation.hk import (hk_observables,
                                                   hk_prefactor_det,
                                                   hk_prefactor_mat)
 
@@ -93,12 +86,12 @@ def main():
                 cauto, kic = hk_observables(params, bc, state, c, pot)
             elif variant == "autocorr_rk4":
                 # only the autocorrelation part (overlap exponents + phases)
-                from semiclassical_tpu.propagation.hk import hk_autocorr_qp
+                from semiclassical_jax.propagation.hk import hk_autocorr_qp
                 c = jnp.ones((args.ntraj,), jnp.complex64)
                 cauto = jnp.sum(hk_autocorr_qp(params, bc, state, c))
             elif variant == "nac_rk4":
                 # only the NAC factor of k~ic (tau couplings + quadratic form)
-                from semiclassical_tpu.propagation.hk import (_nac_factor,
+                from semiclassical_jax.propagation.hk import (_nac_factor,
                                                               _shifted_momentum)
                 PI = _shifted_momentum(params, state.p)
                 nacQ = _nac_factor(params, pot, state.q,
@@ -107,7 +100,7 @@ def main():
             if variant == "det":
                 # nudge M so the det isn't loop-invariant (mimics the real
                 # dependency structure at negligible cost relative to det)
-                from semiclassical_tpu.pytree import replace
+                from semiclassical_jax.pytree import replace
                 eps = jnp.float32(1e-30)
                 state = replace(state,
                                 Mqq=state.Mqq + eps * state.Mpq,

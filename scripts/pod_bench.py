@@ -1,14 +1,14 @@
 # coding: utf-8
-"""Multi-chip flagship benchmark — ready to run the day a pod exists
-(VERDICT r4 missing #4: correctness is covered by the CPU-mesh gates and
-the driver dryrun; this captures the real multi-chip THROUGHPUT number).
+"""Multi-GPU flagship benchmark: the multi-device THROUGHPUT number
+(correctness is covered by the CPU-mesh gates, the dry run and
+`chip_smoke.py --four`).
 
-    # real TPU slice (all local chips):
+    # all local GPUs of one host, one process:
     python scripts/pod_bench.py --ntraj-per-chip 524288
 
-    # multi-host slice: launch one process per host with
+    # several hosts: launch one process per host with
     #   --coordinator host0:port --num-processes N --process-id k
-    # (jax.distributed; the mesh then spans the pod)
+    # (jax.distributed; the mesh then spans every host's GPUs)
 
     # smoke test without hardware (8 virtual CPU devices):
     JAX_PLATFORMS="" python scripts/pod_bench.py --virtual 8 \
@@ -16,7 +16,7 @@ the driver dryrun; this captures the real multi-chip THROUGHPUT number).
 
 The ensemble axis is the data-parallel axis (SURVEY §2.2): trajectories
 shard over the `traj` mesh, parameter packs replicate, and the per-step
-observable reductions lower to psum over ICI. Weak-scaling metric:
+observable reductions lower to psum (NCCL). Weak-scaling metric:
 traj-steps/s/chip should stay ~flat as chips are added (the only
 cross-chip traffic is two psum'd scalars per step).
 """
@@ -26,10 +26,6 @@ import json
 import os
 import sys
 import time
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0")
 
 
 def main():
@@ -61,24 +57,22 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ["JAX_COMPILATION_CACHE_DIR"])
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
-    jax.config.update("jax_enable_x64", True)
-
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
-    from semiclassical_tpu.parallel import ensemble_mesh
-    from semiclassical_tpu.potentials import MorsePotential
-    from semiclassical_tpu.propagation import (HermanKlukPropagator,
+    from semiclassical_jax.hostcache import use_compile_cache
+
+    use_compile_cache()
+    jax.config.update("jax_enable_x64", True)
+    from semiclassical_jax.parallel import ensemble_mesh
+    from semiclassical_jax.potentials import MorsePotential
+    from semiclassical_jax.propagation import (HermanKlukPropagator,
                                                WaltonManolopoulosPropagator)
 
     devices = jax.devices()
     nchips = len(devices)
     mesh = ensemble_mesh(devices)
     ntraj = args.ntraj_per_chip * nchips
-    on_tpu = devices[0].platform != "cpu"
+    on_gpu = devices[0].platform == "gpu"
 
     rng = np.random.default_rng(42)
     d = 60
@@ -86,7 +80,7 @@ def main():
     S = rng.uniform(0.01, 0.3, size=d)
     nac = rng.uniform(-1.0, 1.0, size=d)
     chi = np.full(d, 0.02)
-    algebra = jnp.float32 if on_tpu else jnp.float64
+    algebra = jnp.float32 if on_gpu else jnp.float64
     pot = MorsePotential.create(omega, chi, nac, dtype=algebra)
     dQ = np.sqrt(2.0 * S / omega)
     Gamma = np.diag(omega)
@@ -94,11 +88,11 @@ def main():
     if args.propagator == "WM":
         prop = WaltonManolopoulosPropagator(
             Gamma, Gamma, 1e4, 1e4, dtype=algebra,
-            traj_dtype="comp32" if on_tpu else None)
+            traj_dtype="comp32" if on_gpu else None)
     else:
         prop = HermanKlukPropagator(
             Gamma, Gamma, dtype=algebra,
-            traj_dtype="comp32" if on_tpu else None)
+            traj_dtype="comp32" if on_gpu else None)
     prop.initial_conditions(dQ, np.zeros(d), Gamma, ntraj=ntraj, key=0,
                             potential=pot, mesh=mesh)
 

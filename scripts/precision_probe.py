@@ -20,10 +20,6 @@ import json
 import os
 import sys
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0")
-
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -45,6 +41,9 @@ def main():
     import jax.numpy as jnp
 
     from __graft_entry__ import _as60_setup
+    from semiclassical_jax.hostcache import use_compile_cache
+
+    use_compile_cache()
 
     kw = dict(
         f64=dict(dtype=jnp.float64),

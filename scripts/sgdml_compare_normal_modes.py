@@ -20,10 +20,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from semiclassical_tpu import units
-from semiclassical_tpu.gdml import GDMLParams, gdml_forward
-from semiclassical_tpu.io import FormattedCheckpointFile
-from semiclassical_tpu.potentials import MolecularGDMLPotential, minimize
+from semiclassical_jax import units
+from semiclassical_jax.gdml import GDMLParams, gdml_forward
+from semiclassical_jax.io import FormattedCheckpointFile
+from semiclassical_jax.potentials import MolecularGDMLPotential, minimize
 
 
 def vibrational_frequencies(hess, masses):

@@ -17,8 +17,8 @@ import sys
 import numpy as np
 import jax.numpy as jnp
 
-from semiclassical_tpu import units
-from semiclassical_tpu.gdml import GDMLParams, gdml_forward
+from semiclassical_jax import units
+from semiclassical_jax.gdml import GDMLParams, gdml_forward
 
 
 def read_xyz_frames(path):

@@ -1,6 +1,6 @@
 #!/usr/bin/awk -f
 # Trim a Gaussian 16 formatted checkpoint file to the fields required by
-# the semiclassical_tpu readers (capability parity with the reference's
+# the semiclassical_jax readers (capability parity with the reference's
 # scripts/trim_formatted_checkpoint_file.awk).
 #
 # Kept fields: header lines, Number of atoms, Atomic numbers, Real atomic

@@ -1,6 +1,5 @@
 # coding: utf-8
-"""Variance reduction on the 60-mode AS flagship, real TPU (VERDICT r4
-next #2's 'Done' measurement at production scale).
+"""Variance reduction on the 60-mode AS flagship at production scale.
 
     python scripts/vr_flagship_bench.py --ntraj 65536 --nt 100 --keys 6
 
@@ -15,10 +14,6 @@ import json
 import os
 import sys
 import time
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0")
 
 import numpy as np
 
@@ -36,13 +31,12 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ["JAX_COMPILATION_CACHE_DIR"])
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+    from semiclassical_jax.hostcache import use_compile_cache
 
-    from semiclassical_tpu.potentials import MorsePotential
-    from semiclassical_tpu.propagation import HermanKlukPropagator
+    use_compile_cache()
+
+    from semiclassical_jax.potentials import MorsePotential
+    from semiclassical_jax.propagation import HermanKlukPropagator
 
     rng = np.random.default_rng(42)
     d = 60

@@ -2,7 +2,7 @@
 """WM-GDML dynamics throughput in ONE process (cf. gdml_final_bench.py).
 
 The reference's own gdml recipe runs the WM propagator (its README
-hard-codes alpha = beta = 1e4); this measures the TPU WM dense path on
+hard-codes alpha = beta = 1e4); this measures the WM dense path on
 the coumarin fixture across hessian_eval modes / taylor windows /
 micro-batch sizes, steady-state (repeat propagate() calls in-process:
 the first call pays executable deserialization + first dispatch).
@@ -15,10 +15,6 @@ import json
 import os
 import sys
 import time
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0")
 
 import numpy as np
 
@@ -38,15 +34,14 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ["JAX_COMPILATION_CACHE_DIR"])
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+    from semiclassical_jax.hostcache import use_compile_cache
 
-    from semiclassical_tpu.io.fchk import FormattedCheckpointFile
-    from semiclassical_tpu.potentials import MolecularGDMLPotential, minimize
-    from semiclassical_tpu.propagation import WaltonManolopoulosPropagator
-    from semiclassical_tpu.pytree import replace
+    use_compile_cache()
+
+    from semiclassical_jax.io.fchk import FormattedCheckpointFile
+    from semiclassical_jax.potentials import MolecularGDMLPotential, minimize
+    from semiclassical_jax.propagation import WaltonManolopoulosPropagator
+    from semiclassical_jax.pytree import replace
 
     t_setup = time.time()
     model = np.load(os.path.join(

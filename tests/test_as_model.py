@@ -12,9 +12,9 @@ Oracles:
 import numpy as np
 import pytest
 
-from semiclassical_tpu import units
-from semiclassical_tpu.potentials import MorsePotential
-from semiclassical_tpu.propagation import (
+from semiclassical_jax import units
+from semiclassical_jax.potentials import MorsePotential
+from semiclassical_jax.propagation import (
     HermanKlukPropagator,
     WaltonManolopoulosPropagator,
 )

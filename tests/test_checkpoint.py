@@ -4,9 +4,9 @@ uninterrupted run exactly (same trajectories, same sign-tracker state)."""
 
 import numpy as np
 
-from semiclassical_tpu.checkpoint import CheckpointedRun
-from semiclassical_tpu.potentials import NonHarmonicPotential
-from semiclassical_tpu.propagation import HermanKlukPropagator
+from semiclassical_jax.checkpoint import CheckpointedRun
+from semiclassical_jax.potentials import NonHarmonicPotential
+from semiclassical_jax.propagation import HermanKlukPropagator
 
 
 def _make_prop(pot, key=5):
@@ -34,7 +34,7 @@ def test_resume_matches_uninterrupted(tmp_path):
     # simulate crash: run only 2 segments manually
     c_part, k_part = prop_b.propagate(pot, dt, 10, energy0_es=en0)
     c_part2, k_part2 = prop_b.propagate(pot, dt, 10, energy0_es=en0)
-    from semiclassical_tpu.checkpoint import save_propagator_state
+    from semiclassical_jax.checkpoint import save_propagator_state
     cauto = np.zeros(nt, dtype=complex)
     kic = np.zeros(nt, dtype=complex)
     cauto[:10], cauto[10:20] = c_part, c_part2
@@ -79,11 +79,11 @@ def test_restore_preserves_ensemble_sharding(tmp_path):
     import jax
     from jax.sharding import NamedSharding
 
-    from semiclassical_tpu.checkpoint import (
+    from semiclassical_jax.checkpoint import (
         load_propagator_state,
         save_propagator_state,
     )
-    from semiclassical_tpu.parallel import ensemble_mesh
+    from semiclassical_jax.parallel import ensemble_mesh
 
     pot = NonHarmonicPotential.create()
     Gi = np.array([[2 * 2.5]])
@@ -130,11 +130,11 @@ def test_restore_preserves_ensemble_sharding(tmp_path):
 
 
 def test_wm_checkpoint_roundtrip(tmp_path):
-    from semiclassical_tpu.checkpoint import (
+    from semiclassical_jax.checkpoint import (
         load_propagator_state,
         save_propagator_state,
     )
-    from semiclassical_tpu.propagation import WaltonManolopoulosPropagator
+    from semiclassical_jax.propagation import WaltonManolopoulosPropagator
 
     pot = NonHarmonicPotential.create()
     Gi = np.array([[2 * 2.5]])

@@ -12,8 +12,8 @@ import json
 import numpy as np
 import pytest
 
-from semiclassical_tpu import cli
-import semiclassical_tpu.checkpoint as ckpt_mod
+from semiclassical_jax import cli
+import semiclassical_jax.checkpoint as ckpt_mod
 
 
 @pytest.fixture()
@@ -98,7 +98,7 @@ def test_cli_checkpoint_main_json(as_task):
 
 
 def test_cli_checkpoint_with_norm_monitoring(as_task, caplog):
-    """`checkpoint` and `calc_norm_every` compose (VERDICT r4 weak #4):
+    """`checkpoint` and `calc_norm_every` compose:
     the checkpointed run splits its segments at the norm-monitoring
     boundaries, logs the norm there, and still reproduces the plain
     checkpointed run exactly (the norm readout never touches the state)."""

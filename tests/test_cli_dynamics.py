@@ -9,7 +9,7 @@ import json
 import numpy as np
 import pytest
 
-from semiclassical_tpu import cli
+from semiclassical_jax import cli
 
 
 @pytest.fixture()

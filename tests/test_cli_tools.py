@@ -6,10 +6,10 @@ import json
 import numpy as np
 import pytest
 
-from semiclassical_tpu import cli, units
-from semiclassical_tpu.io.extxyz import write_extxyz
-from semiclassical_tpu.io.results import accumulate_results, init_results
-from semiclassical_tpu.profiling import PhaseTimer, RunMetrics
+from semiclassical_jax import cli, units
+from semiclassical_jax.io.extxyz import write_extxyz
+from semiclassical_jax.io.results import accumulate_results, init_results
+from semiclassical_jax.profiling import PhaseTimer, RunMetrics
 
 
 @pytest.fixture()
@@ -121,7 +121,7 @@ def test_cli_plot_smoke(results_file, monkeypatch):
 
 def test_cli_plot_save(results_file, tmp_path):
     """`semi plot --save fig.png` writes the figure to a file through the
-    real main() path — the headless-TPU-VM workflow (no display needed,
+    real main() path — the headless-machine workflow (no display needed,
     no plt.show monkeypatching)."""
     out = tmp_path / "fig.png"
     cli.main(["plot", results_file, "--save", str(out)])

@@ -4,7 +4,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from semiclassical_tpu.coherent import (
+from semiclassical_jax.coherent import (
     OverlapParams,
     overlap_matrix,
     overlap_vector,

@@ -1,18 +1,17 @@
 # coding: utf-8
 """Compensated-f32 trajectory mode ("comp32").
 
-The TPU has no f64 ALU — XLA emulates f64 elementwise arithmetic in
-software, and the emulated trajectory (q, p) updates dominate the mixed-mode
-HK step. comp32 stores q/p as f32 value + f32 Neumaier residual
-(`TrajState.qc/pc`, true value = q + qc) and folds every RK4 increment in
-with an exact two-sum, removing the eps*|q| accumulation rounding that makes
-plain f32 drift (measured on TPU: plain-f32 C(t) error 1.6e-2 after 100
-steps of the 60-mode benchmark vs 1.7e-5 for mixed AND for comp32; over the
-full 2000-step production horizon comp32 tracks mixed to 5e-7 — BASELINE.md).
+comp32 keeps the trajectory (q, p) updates out of f64 arithmetic
+altogether (on accelerators f64 runs far below the f32 rate). It stores
+q/p as f32 value + f32 Neumaier residual (`TrajState.qc/pc`, true value
+= q + qc) and folds every RK4 increment in with an exact two-sum, removing
+the eps*|q| accumulation rounding that makes plain f32 drift (measured: plain-f32 C(t) error 1.6e-2 after 100 steps of
+the 60-mode benchmark vs 1.7e-5 for mixed AND for comp32; over the full
+2000-step production horizon comp32 tracks mixed to 5e-7).
 
 The reference has no counterpart (complex128/torch-f64 throughout,
-reference propagators.py:321-376); this mode exists purely because of the
-TPU's precision/performance landscape.
+reference propagators.py:321-376); this mode exists purely for speed at
+f64-level trajectory accuracy.
 """
 
 import numpy as np
@@ -20,12 +19,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from semiclassical_tpu.potentials import MorsePotential
-from semiclassical_tpu.propagation import (
+from semiclassical_jax.potentials import MorsePotential
+from semiclassical_jax.propagation import (
     HermanKlukPropagator,
     WaltonManolopoulosPropagator,
 )
-from semiclassical_tpu.propagation.eom import _comp_accumulate
+from semiclassical_jax.propagation.eom import _comp_accumulate
 
 
 def test_comp_accumulate_matches_f64():
@@ -109,7 +108,7 @@ def test_comp32_residuals_bounded():
 def test_comp32_checkpoint_roundtrip(tmp_path):
     """Mid-run checkpoint of a comp32 state (extra qc/pc leaves) restores
     bit-identically and the resumed run reproduces the uninterrupted one."""
-    from semiclassical_tpu.checkpoint import (load_propagator_state,
+    from semiclassical_jax.checkpoint import (load_propagator_state,
                                               save_propagator_state)
     prop, pot = _as12("comp32", ntraj=256)
     c_full, _ = prop.propagate(pot, 2.0, 20, check_energy=False)
@@ -131,7 +130,7 @@ def test_comp32_checkpoint_roundtrip(tmp_path):
 def test_comp32_sharding_equality():
     """comp32 state (with its extra residual leaves) under the 8-device
     trajectory mesh reproduces the single-device run exactly."""
-    from semiclassical_tpu.parallel import ensemble_mesh
+    from semiclassical_jax.parallel import ensemble_mesh
     prop1, pot = _as12("comp32", ntraj=1024)
     c1, k1 = prop1.propagate(pot, 2.0, 20, check_energy=False)
 
@@ -169,8 +168,8 @@ def test_comp32_dense_monodromy_path():
     """comp32 with the *dense* (n, d, d) monodromy representation (the
     molecular/GDML path). Forced here by withholding the potential from
     initial_conditions (no DiagHessian detection); validated on the real
-    rank-deficient methylium example on TPU to max|dC| = 2e-7 over 400
-    steps vs the mixed twin (BASELINE.md)."""
+    rank-deficient methylium example to max|dC| = 2e-7 over 400 steps vs
+    the mixed twin."""
     def run(traj_dtype):
         rng = np.random.default_rng(0)
         d = 6
@@ -252,7 +251,7 @@ def test_comp32_requires_f32_algebra():
 
 def test_cli_precision_comp32(tmp_path, monkeypatch):
     """`semi dynamics --precision comp32` end to end on a tiny AS model."""
-    from semiclassical_tpu import cli
+    from semiclassical_jax import cli
     monkeypatch.chdir(tmp_path)
     with open("AS_model.dat", "w") as f:
         f.write("1000.0  0.20  0.5  0.02\n")

@@ -3,7 +3,7 @@
 
 import pytest
 
-from semiclassical_tpu.config import ConfigurationError, validate_task
+from semiclassical_jax.config import ConfigurationError, validate_task
 
 
 def _dyn_task(**over):
@@ -66,6 +66,21 @@ def test_gdml_with_hess_dtype_still_valid():
         "coupling": "nacs.fchk", "hess_dtype": "float32"}))
 
 
+@pytest.mark.parametrize("mode,ok", [("f64", True), ("ozaki", False),
+                                     ("bf16", False)])
+def test_gdml_eg_mode_only_f64(mode, ok):
+    """sGDML energies/gradients always run in float64: a config asking for
+    another arithmetic is refused, never silently run in f64."""
+    task = _dyn_task(potential={
+        "type": "gdml", "ground": "model.npz", "excited": "s1.fchk",
+        "coupling": "nacs.fchk", "eg_mode": mode})
+    if ok:
+        validate_task(task)
+    else:
+        with pytest.raises(ConfigurationError, match="eg_mode"):
+            validate_task(task)
+
+
 def test_gdml_missing_required_ground():
     with pytest.raises(ConfigurationError):
         validate_task(_dyn_task(potential={
@@ -90,7 +105,7 @@ def test_example_configs_validate():
     import json
     import os
 
-    from semiclassical_tpu.config import validate_task
+    from semiclassical_jax.config import validate_task
 
     root = os.path.join(os.path.dirname(__file__), "..", "examples")
     files = sorted(glob.glob(os.path.join(root, "**", "semi*.json"),

@@ -14,10 +14,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from semiclassical_tpu.potentials import MorsePotential
-from semiclassical_tpu.propagation import (HermanKlukPropagator,
+from semiclassical_jax.potentials import MorsePotential
+from semiclassical_jax.propagation import (HermanKlukPropagator,
                                            WaltonManolopoulosPropagator)
-from semiclassical_tpu.propagation.state import TrajState
+from semiclassical_jax.propagation.state import TrajState
 
 
 def _as_setup(d=4, seed=11):

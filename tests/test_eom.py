@@ -8,9 +8,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from semiclassical_tpu.potentials.base import DenseHessian, DiagHessian
-from semiclassical_tpu.propagation.eom import rk4_step
-from semiclassical_tpu.propagation.state import TrajState
+from semiclassical_jax.potentials.base import DenseHessian, DiagHessian
+from semiclassical_jax.propagation.eom import rk4_step
+from semiclassical_jax.propagation.state import TrajState
 
 
 class _SeparableQuartic:

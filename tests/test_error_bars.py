@@ -21,8 +21,8 @@ import json
 import numpy as np
 import pytest
 
-from semiclassical_tpu.potentials import MorsePotential
-from semiclassical_tpu.propagation import (
+from semiclassical_jax.potentials import MorsePotential
+from semiclassical_jax.propagation import (
     HermanKlukPropagator,
     WaltonManolopoulosPropagator,
 )
@@ -52,7 +52,7 @@ def test_stderr_matches_direct_per_trajectory():
     the per-trajectory contributions of the granular API (exercised at a
     propagated state, not t=0, where HK importance sampling makes the
     autocorrelation variance exactly zero)."""
-    from semiclassical_tpu.propagation.hk import hk_autocorr_qp
+    from semiclassical_jax.propagation.hk import hk_autocorr_qp
 
     pot, Gamma, q0 = _as_model()
     prop = _hk(pot, Gamma, q0, 512, key=0)
@@ -149,7 +149,7 @@ def test_exact_integrator_error_bars_match_rk4():
 def test_sharded_error_bars_match_single_device():
     import jax
 
-    from semiclassical_tpu.parallel import ensemble_mesh
+    from semiclassical_jax.parallel import ensemble_mesh
 
     pot, Gamma, q0 = _as_model()
     single = _hk(pot, Gamma, q0, 1024, key=7).propagate(
@@ -168,7 +168,7 @@ def test_sharded_error_bars_match_single_device():
 
 
 def test_checkpointed_run_error_bars(tmp_path):
-    from semiclassical_tpu.checkpoint import CheckpointedRun
+    from semiclassical_jax.checkpoint import CheckpointedRun
 
     pot, Gamma, q0 = _as_model()
     plain = _hk(pot, Gamma, q0, 256, key=9).propagate(
@@ -187,7 +187,7 @@ def test_resume_without_stored_stderr_drops_error_bars(tmp_path):
     not fabricate stderr=0 for the already-completed steps: the stderr
     outputs come back None so the npz keys are dropped (the drop-keys
     contract), with a warning."""
-    from semiclassical_tpu.checkpoint import CheckpointedRun
+    from semiclassical_jax.checkpoint import CheckpointedRun
 
     pot, Gamma, q0 = _as_model()
     ckpt = str(tmp_path / "ck.npz")
@@ -195,7 +195,7 @@ def test_resume_without_stored_stderr_drops_error_bars(tmp_path):
     # first life of the job: no error bars, killed after one segment
     prop = _hk(pot, Gamma, q0, 256, key=9)
     seg = prop.propagate(pot, DT, 2, chunk=2)
-    from semiclassical_tpu.checkpoint import save_propagator_state
+    from semiclassical_jax.checkpoint import save_propagator_state
     cauto = np.zeros(6, dtype=complex)
     kic = np.zeros(6, dtype=complex)
     cauto[:2], kic[:2] = seg
@@ -214,7 +214,7 @@ def test_resume_without_stored_stderr_drops_error_bars(tmp_path):
 
 
 def test_accumulate_quadrature(tmp_path):
-    from semiclassical_tpu.io import results
+    from semiclassical_jax.io import results
 
     times = np.linspace(0.0, 1.0, 5)
     f = str(tmp_path / "r.npz")
@@ -268,7 +268,7 @@ def test_stderr_survives_high_mode_count_f32():
 
 
 def test_cli_error_bars(tmp_path, monkeypatch):
-    from semiclassical_tpu import cli
+    from semiclassical_jax import cli
 
     monkeypatch.chdir(tmp_path)
     with open("AS_model.dat", "w") as fh:
@@ -286,7 +286,7 @@ def test_cli_error_bars(tmp_path, monkeypatch):
         "error_bars": True,
         "results": {"correlations": "correlations.npz"},
     }
-    from semiclassical_tpu.config import validate_task
+    from semiclassical_jax.config import validate_task
     validate_task(task)
     cli.run_semiclassical_dynamics(task)
     d = np.load("correlations.npz")

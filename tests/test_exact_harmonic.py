@@ -13,12 +13,12 @@ import pytest
 
 import jax.numpy as jnp
 
-from semiclassical_tpu.potentials import MolecularHarmonicPotential
-from semiclassical_tpu.propagation import HermanKlukPropagator
-from semiclassical_tpu.propagation.eom import rk4_step
-from semiclassical_tpu.propagation.exact_harmonic import (
+from semiclassical_jax.potentials import MolecularHarmonicPotential
+from semiclassical_jax.propagation import HermanKlukPropagator
+from semiclassical_jax.propagation.eom import rk4_step
+from semiclassical_jax.propagation.exact_harmonic import (
     build_harmonic_map, harmonic_step, supports_exact_harmonic)
-from semiclassical_tpu.propagation.state import TrajState
+from semiclassical_jax.propagation.state import TrajState
 
 
 def _make_potential(d=4, seed=0, with_grad=True, spectrum=None):
@@ -61,7 +61,7 @@ def test_supports_detection():
     pot = _make_potential()
     assert supports_exact_harmonic(pot)
 
-    from semiclassical_tpu.potentials import MorsePotential
+    from semiclassical_jax.potentials import MorsePotential
     morse = MorsePotential.create(
         np.array([0.01]), np.array([0.02]), np.array([0.5]))
     assert not supports_exact_harmonic(morse)
@@ -180,7 +180,7 @@ def test_cli_integrator_exact_molecular(tmp_path, monkeypatch, ref_data):
     steps (identical seeds)."""
     import json
 
-    from semiclassical_tpu import cli
+    from semiclassical_jax import cli
 
     ex = ref_data / "examples" / "methylium_AH"
     s0 = ex / "opt_freq_s0.fchk"
@@ -229,7 +229,7 @@ def test_comp32_step_folds_both_residuals():
     pc = jnp.asarray(1e-3 * rng.standard_normal(base.p.shape))
     zeros = jnp.zeros_like(base.q)
 
-    from semiclassical_tpu.pytree import replace as pt_replace
+    from semiclassical_jax.pytree import replace as pt_replace
     split = pt_replace(base, qc=qc, pc=pc)
     folded = pt_replace(base, q=base.q + qc, p=base.p + pc,
                         qc=zeros, pc=zeros)
@@ -256,7 +256,7 @@ def test_hmap_rebuilds_for_new_potential_object():
     dtypes) must rebuild the map, not reuse the previous constants.
     Gated on the propagated POSITIONS (a 1.3x Hessian visibly bends every
     trajectory; C(t) would be a weaker gate — it decays to ~0 here)."""
-    from semiclassical_tpu.pytree import replace as pt_replace
+    from semiclassical_jax.pytree import replace as pt_replace
 
     pot_a = _make_potential(d=4, seed=20)
     pot_b = pt_replace(pot_a, hess0=1.3 * pot_a.hess0)

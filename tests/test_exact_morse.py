@@ -16,22 +16,22 @@ The gates here check
 The reference has no counterpart — its propagators always run RK4
 (reference propagators.py:86-119); the exact map is an accuracy/
 capability feature (exact at any dt, no stability limit, exact energy
-conservation) — at equal dt it measures ~1.2x RK4's per-step cost on
-TPU (both are VPU-flop-bound; see exact_morse.py).
+conservation), not expected to be faster than RK4 at equal dt (both are
+elementwise-flop-bound; see exact_morse.py).
 """
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from semiclassical_tpu.potentials import MorsePotential, NonHarmonicPotential
-from semiclassical_tpu.propagation import (
+from semiclassical_jax.potentials import MorsePotential, NonHarmonicPotential
+from semiclassical_jax.propagation import (
     HermanKlukPropagator,
     WaltonManolopoulosPropagator,
 )
-from semiclassical_tpu.propagation import exact_morse as em
-from semiclassical_tpu.propagation.eom import rk4_step
-from semiclassical_tpu.propagation.state import TrajState
+from semiclassical_jax.propagation import exact_morse as em
+from semiclassical_jax.propagation.eom import rk4_step
+from semiclassical_jax.propagation.state import TrajState
 
 
 def _morse(d=6, seed=0, dtype=jnp.float64, chi=0.02):
@@ -163,7 +163,7 @@ def test_exact_energy_is_constant():
 
 
 def test_exact_checkpoint_resume():
-    from semiclassical_tpu.checkpoint import (load_propagator_state,
+    from semiclassical_jax.checkpoint import (load_propagator_state,
                                               save_propagator_state)
     pot, q0, Gamma, _ = _morse(d=5, seed=9)
 
@@ -195,7 +195,7 @@ def test_exact_checkpoint_resume():
 def test_exact_sharded_matches_single():
     import jax
 
-    from semiclassical_tpu.parallel import ensemble_mesh
+    from semiclassical_jax.parallel import ensemble_mesh
 
     pot, q0, Gamma, _ = _morse(d=4, seed=10)
 
@@ -275,7 +275,7 @@ def test_exact_propagate_with_unbound_rows_matches_rk4():
                                 potential=pot)
         # inject hot rows (dissociating + near-separatrix) into the state;
         # identical surgery on both runs keeps them twins
-        from semiclassical_tpu.pytree import replace
+        from semiclassical_jax.pytree import replace
         p = np.array(prop.state.p)
         p[3, 0] = np.sqrt(2.1 * D[0])
         p[100, 2] = np.sqrt(1.9 * D[2] * 0.95)

@@ -16,7 +16,7 @@ import shutil
 import numpy as np
 import pytest
 
-from semiclassical_tpu import cli
+from semiclassical_jax import cli
 
 EXAMPLE = "examples/methylium_AH"
 
@@ -103,9 +103,8 @@ def test_methylium_example(example_dir, monkeypatch):
     # end-to-end RATE parity against the *current* torch reference run at
     # full 2000 steps (10k trajectories, manual_seed 0 — see
     # tests/data/README.md). The stale committed golden deviates 4.8% from
-    # the current reference at the rate maximum; measured skew of this
-    # framework at 50k trajectories vs this fixture is 0.58% (BASELINE.md),
-    # so the gate here is the 10k-vs-10k MC noise.
+    # the current reference at the rate maximum; the gate here is the
+    # 10k-vs-10k MC noise.
     fixture_rate = (pathlib.Path(__file__).parent / "data"
                     / "methylium_reference_rate_10k.npz")
     if fixture_rate.exists():
@@ -119,14 +118,13 @@ def test_methylium_example(example_dir, monkeypatch):
 @pytest.mark.skipif(not os.environ.get("SEMI_FULL_PARITY"),
                     reason="opt-in full-scale parity gate: set "
                            "SEMI_FULL_PARITY=1 (50k trajectories x 2000 "
-                           "steps; ~40 min on a 1-core CPU, seconds on TPU)")
+                           "steps; ~40 min on a 1-core CPU)")
 def test_methylium_full_scale_parity(example_dir, monkeypatch):
     """The reference-strength gate (reference tests/test_examples.py:101-105
     gates at 3% of the rate maximum): the full 50,000-trajectory, 2000-step
     methylium configuration vs the current-torch-reference rate fixture.
-    The production-scale result recorded in BASELINE.md (0.58% at the curve
-    maximum) is reproduced *as a test* here instead of living only in
-    prose."""
+    The production-scale result is reproduced *as a test* here instead of
+    living only in prose."""
     import pathlib
 
     fixture_rate = (pathlib.Path(__file__).parent / "data"

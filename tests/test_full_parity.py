@@ -2,99 +2,25 @@
 """Reference-strength end-to-end parity gate at full production scale.
 
 The reference gates the methylium example at 3% of the rate maximum
-(reference tests/test_examples.py:101-105). This test runs the SAME
-configuration this framework's headline 0.58% claim was measured at
-(BASELINE.md): 50,000 trajectories x 2000 steps through the real CLI task
-functions, gated at 3% of the rate-at-maximum against the
-current-torch-reference fixture (tests/data/README.md).
+(reference tests/test_examples.py:101-105). This test runs the production
+configuration — 50,000 trajectories x 2000 steps through the real CLI task
+functions — gated at 3% of the rate-at-maximum against the
+current-torch-reference fixture (tests/data/README.md). The job itself is
+`chip_smoke.methylium_parity`, which chip_smoke.py also runs as a phase.
 
-Cost is minutes on one TPU chip and impractical on CPU, so it runs in the
-TPU tier and only when explicitly requested:
+Impractical on CPU, so it runs in the GPU tier and only when explicitly
+requested:
 
-    SEMI_TPU_TESTS=1 SEMI_FULL_PARITY=1 python -m pytest tests/test_full_parity.py -q
+    SEMI_GPU_TESTS=1 SEMI_FULL_PARITY=1 python -m pytest tests/test_full_parity.py -q
 """
 
-import json
-import os
-import pathlib
-import shutil
-
-import numpy as np
 import pytest
 
-from semiclassical_tpu import cli
-
-pytestmark = [pytest.mark.tpu, pytest.mark.full_parity, pytest.mark.slow]
-
-EXAMPLE = "examples/methylium_AH"
+pytestmark = [pytest.mark.gpu, pytest.mark.full_parity, pytest.mark.slow]
 
 
-@pytest.fixture()
-def example_dir(ref_data, tmp_path):
-    src = ref_data / EXAMPLE
-    if not src.is_dir():
-        pytest.skip(f"{src} not available")
-    dst = tmp_path / "methylium_AH"
-    shutil.copytree(src, dst)
-    os.chmod(dst, 0o755)
-    for p in dst.iterdir():
-        os.chmod(p, 0o644)
-    return dst
+def test_methylium_rate_parity_3pct_full_scale():
+    import chip_smoke
 
-
-def test_methylium_rate_parity_3pct_full_scale(example_dir, monkeypatch):
-    fixture = (pathlib.Path(__file__).parent / "data"
-               / "methylium_reference_rate_10k.npz")
-    if not fixture.exists():
-        pytest.skip("reference rate fixture not available")
-    ref = np.load(fixture)
-
-    monkeypatch.chdir(example_dir)
-    with open("semi.json") as f:
-        config = json.load(f)
-
-    for task in config["semi"]:
-        if task["task"] == "dynamics":
-            task["num_trajectories"] = 50000
-            task["batch_size"] = 50000
-            task["manual_seed"] = 1234
-            cli.run_semiclassical_dynamics(task)
-    for task in config["semi"]:
-        if task["task"] == "rates":
-            cli.calculate_rates(task)
-
-    data = dict(np.load("correlations.npz"))
-    imax = int(np.argmax(ref["ic_rate"]))
-    rel = (abs(ref["ic_rate"][imax] - data["ic_rate"][imax])
-           / abs(ref["ic_rate"][imax]))
-
-    # committed per-round artifact (VERDICT r3 missing #3): the 1%-parity
-    # claim stays continuously verifiable. By default the artifact goes to
-    # the test's tmp dir (running the slow tier must not dirty the working
-    # tree); set SEMI_REFRESH_PARITY_ARTIFACT=1 to refresh the committed
-    # copy at tests/data/full_parity_result.json
-    import datetime
-
-    import jax
-
-    artifact = {
-        "gate": "methylium rate-at-maximum, 50k x 2000 steps",
-        "rate_max_torch_ref": float(ref["ic_rate"][imax]),
-        "rate_max_ours": float(data["ic_rate"][imax]),
-        "rel_deviation": float(rel),
-        "gate_threshold": 0.03,
-        "trajectories": int(data["trajectories"]),
-        "device": str(jax.devices()[0]),
-        "date": datetime.date.today().isoformat(),
-    }
-    if os.environ.get("SEMI_REFRESH_PARITY_ARTIFACT") == "1":
-        out = (pathlib.Path(__file__).parent / "data"
-               / "full_parity_result.json")
-    else:
-        out = example_dir / "full_parity_result.json"
-    out.write_text(json.dumps(artifact, indent=1) + "\n")
-
-    # the reference's own gate strength (3% of the rate maximum)
-    assert rel < 0.03, f"rate-at-maximum deviation {rel:.4f} >= 3%"
-    # correlation amplitude sanity at the same scale
-    assert abs(data["autocorrelation"][0] - 1.0) < 1e-2
+    out = chip_smoke.methylium_parity(ntraj=50000, nt=2000, seed=1234)
+    assert out["rate_max_dev"] < 0.03

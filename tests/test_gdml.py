@@ -15,7 +15,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from semiclassical_tpu.gdml import GDMLParams, gdml_forward
+from semiclassical_jax.gdml import GDMLParams, gdml_forward
 
 
 @pytest.fixture(scope="module")
@@ -131,7 +131,7 @@ def test_batch_size_sweep_vs_torch_reference(model_and_coords):
     the reference torch implementation (reference
     tests/test_gdml_predictor.py:51-88 sweeps 1 -> 10000 on GPU; this box is
     one CPU core, so the sweep stops at 1000 — the larger sizes are timed on
-    real TPU hardware by scripts/gdml_bench.py). Gate: per-sample L2 error
+    the GPU by scripts/gdml_bench.py). Gate: per-sample L2 error
     < 1e-6, the reference's own threshold."""
     torch = pytest.importorskip("torch")
     sys.path.insert(0, "/root/reference")
@@ -157,7 +157,7 @@ def test_batch_size_sweep_vs_torch_reference(model_and_coords):
 
 
 def test_gdml_mixed_hessian(model_and_coords):
-    """The TPU mixed mode: f64 energies/gradients (absolute energies are
+    """The mixed mode: f64 energies/gradients (absolute energies are
     O(1e2) Ha and feed the action phase — pure f32 loses ~1 Ha to
     cancellation) with the expensive second-derivative contractions in f32
     (hess_dtype). The f32 Hessian must sit well inside the sGDML model
@@ -175,39 +175,3 @@ def test_gdml_mixed_hessian(model_and_coords):
     assert (np.abs(np.asarray(hm) - np.asarray(h64)).max()
             < 1e-4 * scale), scale
 
-
-def test_ozaki_eg_mode_matches_f64(model_and_coords):
-    """eg_mode="ozaki" (error-free bf16-MXU slicing of the KRR
-    contractions, ops/ozaki.py) reproduces the f64 path to far below the
-    sGDML model error: E within 1e-6 Ha, gradients/Hessians to 1e-6
-    relative. A longdouble host oracle showed the sliced path is in fact
-    *closer* to the true sums than sequential f64 rounding (measured
-    1.4e-8 vs 2.5e-8 Ha on perturbed coumarin geometries)."""
-    import jax
-
-    p64, r0, model = model_and_coords
-    poz = GDMLParams.from_npz(model, eg_mode="ozaki")
-    rng = np.random.default_rng(0)
-    r = jnp.asarray(np.asarray(r0)[0][None]
-                    + 0.05 * rng.standard_normal((16, r0.shape[1])))
-
-    f = jax.jit(gdml_forward, static_argnames=("order", "hess_dtype"))
-    e64, g64, h64 = f(p64, r, order=2, hess_dtype=jnp.float32)
-    eoz, goz, hoz = f(poz, r, order=2, hess_dtype=jnp.float32)
-    assert np.max(np.abs(np.asarray(eoz) - np.asarray(e64))) < 1e-6
-    gscale = np.max(np.abs(np.asarray(g64)))
-    assert np.max(np.abs(np.asarray(goz) - np.asarray(g64))) < 1e-6 * gscale
-    hscale = np.max(np.abs(np.asarray(h64)))
-    assert np.max(np.abs(np.asarray(hoz) - np.asarray(h64))) < 1e-5 * hscale
-
-
-def test_ozaki_gradient_autodiff_consistency(model_and_coords):
-    """The analytic gradient of the ozaki path matches jax.grad of the
-    ozaki energy (the sliced matmuls are differentiable jax ops)."""
-    import jax
-
-    _, r, model = model_and_coords
-    poz = GDMLParams.from_npz(model, eg_mode="ozaki")
-    _, grad = gdml_forward(poz, r, order=1)
-    g64 = gdml_forward(GDMLParams.from_npz(model), r, order=1)[1]
-    assert np.abs(np.asarray(grad) - np.asarray(g64)).max() < 1e-8

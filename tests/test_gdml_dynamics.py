@@ -11,9 +11,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from semiclassical_tpu.io import FormattedCheckpointFile
-from semiclassical_tpu.potentials import MolecularGDMLPotential, minimize
-from semiclassical_tpu.propagation import HermanKlukPropagator
+from semiclassical_jax.io import FormattedCheckpointFile
+from semiclassical_jax.potentials import MolecularGDMLPotential, minimize
+from semiclassical_jax.propagation import HermanKlukPropagator
 
 
 @pytest.mark.slow
@@ -24,7 +24,7 @@ def test_main_gdml_dynamics_without_hess_dtype(ref_data, tmp_path,
     the round-2 schema bug that demanded every potential key."""
     import json
 
-    from semiclassical_tpu import cli
+    from semiclassical_jax import cli
 
     model_path = (ref_data / "GDML"
                   / "coumarin_forces_au-wB97XD_def2SVP-train200-sym1.npz")
@@ -81,7 +81,7 @@ def test_gdml_short_time_matches_harmonic(ref_data):
 
     # second-order Taylor comparator built FROM the GDML PES itself
     v0, g0, h = pot.local_expansion(x0[None, :])
-    from semiclassical_tpu.potentials.molecular import (
+    from semiclassical_jax.potentials.molecular import (
         MolecularHarmonicPotential)
     harm = MolecularHarmonicPotential(
         pos0=x0,
@@ -120,7 +120,7 @@ def test_gdml_sharded_matches_single_device(ref_data):
     tight (the one sharded code path the model potentials don't cover)."""
     import jax
 
-    from semiclassical_tpu.parallel import ensemble_mesh
+    from semiclassical_jax.parallel import ensemble_mesh
 
     model_path = (ref_data / "GDML"
                   / "coumarin_forces_au-wB97XD_def2SVP-train200-sym1.npz")
@@ -186,7 +186,7 @@ def test_gdml_wm_dynamics(ref_data):
     'gdml' potential": propagator WM, cell_width 10000). Exercises the
     dense WM path (DenseHessian monodromy, rank-deficient Gamma0 with 6
     zero modes) end to end."""
-    from semiclassical_tpu.propagation import WaltonManolopoulosPropagator
+    from semiclassical_jax.propagation import WaltonManolopoulosPropagator
 
     model_path = (ref_data / "GDML"
                   / "coumarin_forces_au-wB97XD_def2SVP-train200-sym1.npz")

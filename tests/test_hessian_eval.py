@@ -12,10 +12,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from semiclassical_tpu.potentials.base import DenseHessian
-from semiclassical_tpu.propagation import HermanKlukPropagator
-from semiclassical_tpu.propagation.eom import rk4_step
-from semiclassical_tpu.pytree import pytree_dataclass
+from semiclassical_jax.potentials.base import DenseHessian
+from semiclassical_jax.propagation import HermanKlukPropagator
+from semiclassical_jax.propagation.eom import rk4_step
+from semiclassical_jax.pytree import pytree_dataclass
 
 
 @pytree_dataclass(meta=("hessian_eval", "taylor_every"))
@@ -87,7 +87,7 @@ def _run(pot, nt=40, dt=0.5, ntraj=32, key=3):
 def test_frozen_hessian_exact_for_constant_hessian():
     """With lam = 0 the Hessian is geometry-independent, so freezing it
     changes nothing: step and stage modes must agree to roundoff."""
-    from semiclassical_tpu.pytree import replace
+    from semiclassical_jax.pytree import replace
     pot_stage = _make_potential(lam=0.0)
     pot_step = replace(pot_stage, hessian_eval="step")
     s1, c1, k1 = _run(pot_stage, nt=10)
@@ -100,7 +100,7 @@ def test_frozen_hessian_exact_for_constant_hessian():
 def test_frozen_hessian_trajectories_bit_identical():
     """q, p, S never see the Hessian: the frozen mode must reproduce them
     exactly, while the monodromy differs (but only slightly)."""
-    from semiclassical_tpu.pytree import replace
+    from semiclassical_jax.pytree import replace
     pot = _make_potential(lam=2.0e-2)
     s1, c1, k1 = _run(pot)
     s2, c2, k2 = _run(replace(pot, hessian_eval="step"))
@@ -122,7 +122,7 @@ def test_frozen_hessian_second_order_convergence():
     """The midpoint-frozen monodromy propagator is a 2nd-order method:
     halving dt must shrink the monodromy gap to the stage mode ~4x
     (asymptotically; allow 3x for pre-asymptotic slack)."""
-    from semiclassical_tpu.pytree import replace
+    from semiclassical_jax.pytree import replace
     pot = _make_potential(lam=2.0e-2)
     pot_f = replace(pot, hessian_eval="step")
 
@@ -140,13 +140,13 @@ def test_single_step_matches_manual_composition():
     """One frozen-H rk4_step must equal the 4-stage recurrence run with the
     midpoint Hessian substituted at every stage (the defining equation of
     the mode), not merely be 'close'."""
-    from semiclassical_tpu.pytree import replace
+    from semiclassical_jax.pytree import replace
     pot = _make_potential(lam=2.0e-2)
     pot_f = replace(pot, hessian_eval="step")
     d = pot.dimensions()
     rng = np.random.default_rng(1)
     n = 8
-    from semiclassical_tpu.propagation.state import TrajState
+    from semiclassical_jax.propagation.state import TrajState
     eye = jnp.broadcast_to(jnp.eye(d), (n, d, d))
     state = TrajState(
         q=jnp.asarray(rng.normal(0.3, 0.1, size=(n, d))),
@@ -190,9 +190,9 @@ def test_gdml_frozen_hessian_close(ref_data):
     """Coumarin sGDML: hessian_eval='step' must track the 4-stage mode —
     identical ensembles, so the gate is far below MC noise. (This is the
     configuration the mode exists for: the analytic sGDML Hessian costs
-    ~20x the gradient — BASELINE.md.)"""
-    from semiclassical_tpu.io import FormattedCheckpointFile
-    from semiclassical_tpu.potentials import MolecularGDMLPotential
+    ~20x the gradient.)"""
+    from semiclassical_jax.io import FormattedCheckpointFile
+    from semiclassical_jax.potentials import MolecularGDMLPotential
 
     model_path = (ref_data / "GDML"
                   / "coumarin_forces_au-wB97XD_def2SVP-train200-sym1.npz")
@@ -230,8 +230,8 @@ def test_gdml_frozen_hessian_close(ref_data):
 
 
 def test_gdml_create_rejects_bad_hessian_eval(ref_data):
-    from semiclassical_tpu.io import FormattedCheckpointFile
-    from semiclassical_tpu.potentials import MolecularGDMLPotential
+    from semiclassical_jax.io import FormattedCheckpointFile
+    from semiclassical_jax.potentials import MolecularGDMLPotential
 
     model_path = (ref_data / "GDML"
                   / "coumarin_forces_au-wB97XD_def2SVP-train200-sym1.npz")
@@ -246,7 +246,7 @@ def test_gdml_create_rejects_bad_hessian_eval(ref_data):
 
 
 def test_config_accepts_hessian_eval():
-    from semiclassical_tpu.config import validate_task
+    from semiclassical_jax.config import validate_task
 
     task = {
         "task": "dynamics",
@@ -268,7 +268,7 @@ def test_taylor_exact_for_quadratic_potential():
     at the midpoint IS the exact PES: taylor-mode trajectories must match
     the 4-stage mode to roundoff (they are computed through a different
     arithmetic path, so not bit-identical)."""
-    from semiclassical_tpu.pytree import replace
+    from semiclassical_jax.pytree import replace
     pot_stage = _make_potential(lam=0.0)
     pot_t = replace(pot_stage, hessian_eval="taylor")
     s1, c1, k1 = _run(pot_stage, nt=10)
@@ -286,7 +286,7 @@ def test_taylor_second_order_convergence():
     """The local-harmonic stage forces make taylor a globally 2nd-order
     method for the trajectories: halving dt must shrink the q/p gap to the
     4-stage mode ~4x (allow 3x for pre-asymptotic slack)."""
-    from semiclassical_tpu.pytree import replace
+    from semiclassical_jax.pytree import replace
     pot = _make_potential(lam=2.0e-2)
     pot_t = replace(pot, hessian_eval="taylor")
 
@@ -306,8 +306,8 @@ def test_taylor_single_step_matches_manual_quadratic():
     """One taylor rk4_step must equal an rk4_step on the hand-built
     quadratic expansion of the PES around the free-flight midpoint (the
     defining equation of the mode), not merely be 'close'."""
-    from semiclassical_tpu.pytree import replace
-    from semiclassical_tpu.propagation.state import TrajState
+    from semiclassical_jax.pytree import replace
+    from semiclassical_jax.propagation.state import TrajState
 
     pot = _make_potential(lam=2.0e-2)
     pot_t = replace(pot, hessian_eval="taylor")
@@ -360,8 +360,8 @@ def test_gdml_taylor_close(ref_data):
     identical ensembles. Unlike 'step' the trajectories themselves carry
     the O(dt^2) local-harmonic error, so the gate is looser — but still
     far below the MC noise scale of production runs."""
-    from semiclassical_tpu.io import FormattedCheckpointFile
-    from semiclassical_tpu.potentials import MolecularGDMLPotential
+    from semiclassical_jax.io import FormattedCheckpointFile
+    from semiclassical_jax.potentials import MolecularGDMLPotential
 
     model_path = (ref_data / "GDML"
                   / "coumarin_forces_au-wB97XD_def2SVP-train200-sym1.npz")
@@ -402,7 +402,7 @@ def test_window_exact_for_quadratic_potential():
     """lam = 0: expanding a global quadratic is exact whatever the window
     length, so even very long windows must match the 4-stage mode to
     roundoff."""
-    from semiclassical_tpu.pytree import replace
+    from semiclassical_jax.pytree import replace
     pot_stage = _make_potential(lam=0.0)
     pot_w = replace(pot_stage, hessian_eval="taylor", taylor_every=8)
     s1, c1, k1 = _run(pot_stage, nt=16)
@@ -416,7 +416,7 @@ def test_window_second_order_in_window_length():
     """The stage-force error is 2nd-order in the window length: at fixed
     horizon, the gap between taylor_every=4 and per-step taylor must
     shrink ~4x when dt halves (window length halves with it)."""
-    from semiclassical_tpu.pytree import replace
+    from semiclassical_jax.pytree import replace
     pot = _make_potential(lam=2.0e-2)
     pot_t = replace(pot, hessian_eval="taylor")
     pot_w = replace(pot, hessian_eval="taylor", taylor_every=4)
@@ -437,8 +437,8 @@ def test_window_matches_manual_quadratic_composition():
     """taylor_every=nt (one window for the whole scan) must equal running
     every step on the hand-built quadratic expanded at the window
     midpoint — the defining equation of the window mode."""
-    from semiclassical_tpu.propagation.eom import LocalQuadratic
-    from semiclassical_tpu.pytree import replace
+    from semiclassical_jax.propagation.eom import LocalQuadratic
+    from semiclassical_jax.pytree import replace
 
     pot = _make_potential(lam=2.0e-2)
     nt, dt = 4, 0.5
@@ -452,7 +452,7 @@ def test_window_matches_manual_quadratic_composition():
     w = np.sqrt(np.diag(np.asarray(pot.K)))
     Gamma = np.diag(w)
     q0v = np.full(d, 0.3)
-    from semiclassical_tpu.propagation import HermanKlukPropagator
+    from semiclassical_jax.propagation import HermanKlukPropagator
     prop = HermanKlukPropagator(Gamma, Gamma)
     prop.initial_conditions(q0v, np.zeros(d), Gamma, ntraj=32, key=3,
                             potential=pot_plain)
@@ -471,8 +471,8 @@ def test_window_matches_manual_quadratic_composition():
 def test_gdml_window_close(ref_data):
     """Coumarin sGDML: taylor_every=8 must track the per-step taylor mode
     at production-scale steps (identical ensembles)."""
-    from semiclassical_tpu.io import FormattedCheckpointFile
-    from semiclassical_tpu.potentials import MolecularGDMLPotential
+    from semiclassical_jax.io import FormattedCheckpointFile
+    from semiclassical_jax.potentials import MolecularGDMLPotential
 
     model_path = (ref_data / "GDML"
                   / "coumarin_forces_au-wB97XD_def2SVP-train200-sym1.npz")
@@ -508,8 +508,8 @@ def test_gdml_window_close(ref_data):
 
 
 def test_create_rejects_window_without_taylor(ref_data):
-    from semiclassical_tpu.io import FormattedCheckpointFile
-    from semiclassical_tpu.potentials import MolecularGDMLPotential
+    from semiclassical_jax.io import FormattedCheckpointFile
+    from semiclassical_jax.potentials import MolecularGDMLPotential
 
     model_path = (ref_data / "GDML"
                   / "coumarin_forces_au-wB97XD_def2SVP-train200-sym1.npz")
@@ -529,7 +529,7 @@ def test_create_rejects_window_without_taylor(ref_data):
 
 
 def _morse(hessian_eval="stage", taylor_every=1, d=3):
-    from semiclassical_tpu.potentials import MorsePotential
+    from semiclassical_jax.potentials import MorsePotential
     rng = np.random.default_rng(2)
     omega = rng.uniform(0.004, 0.01, size=d)
     nac = rng.uniform(-1.0, 1.0, size=d)
@@ -613,8 +613,8 @@ def test_wm_taylor_window_runs_and_tracks_stage():
     """The WM scan shares rk4_step and the window branch: taylor and
     taylor_every must run through WaltonManolopoulosPropagator and track
     the stage mode (identical ensembles)."""
-    from semiclassical_tpu.propagation import WaltonManolopoulosPropagator
-    from semiclassical_tpu.pytree import replace
+    from semiclassical_jax.propagation import WaltonManolopoulosPropagator
+    from semiclassical_jax.pytree import replace
 
     pot = _make_potential(lam=2.0e-2)
 
@@ -646,9 +646,9 @@ def test_gdml_wm_taylor_close(ref_data):
     must track the 4-stage mode on identical ensembles (the WM prefactor
     consumes the monodromy more aggressively than HK's — the production
     WM-GDML recipe is the reference's own gdml example shape)."""
-    from semiclassical_tpu.io import FormattedCheckpointFile
-    from semiclassical_tpu.potentials import MolecularGDMLPotential
-    from semiclassical_tpu.propagation import WaltonManolopoulosPropagator
+    from semiclassical_jax.io import FormattedCheckpointFile
+    from semiclassical_jax.potentials import MolecularGDMLPotential
+    from semiclassical_jax.propagation import WaltonManolopoulosPropagator
 
     model_path = (ref_data / "GDML"
                   / "coumarin_forces_au-wB97XD_def2SVP-train200-sym1.npz")
@@ -683,7 +683,7 @@ def test_window_without_taylor_raises_at_scan():
     pytree replace() can bypass it — the scan must refuse at trace time
     rather than silently replace stage/step-parity forces with local
     quadratics (same guard philosophy as rk4_step's hessian_eval check)."""
-    from semiclassical_tpu.pytree import replace
+    from semiclassical_jax.pytree import replace
 
     pot = _make_potential(lam=2.0e-2)
     pot_bad = replace(pot, hessian_eval="step", taylor_every=4)
@@ -697,7 +697,7 @@ def test_window_mono_map_matches_horner(monkeypatch):
     truncated exponential as the per-step frozen-H Horner — identical
     windows, identical trajectories, monodromy equal to association-order
     roundoff."""
-    from semiclassical_tpu.pytree import replace
+    from semiclassical_jax.pytree import replace
 
     pot = replace(_make_potential(lam=2.0e-2), hessian_eval="taylor",
                   taylor_every=4)
@@ -718,15 +718,15 @@ def test_window_mono_map_matches_horner(monkeypatch):
 
 
 def test_window_phase_chunk_dependence_is_bounded_contract(ref_data):
-    """CONTRACT (VERDICT r4 weak #5): with taylor_every > 1 the window
+    """CONTRACT: with taylor_every > 1 the window
     phase restarts at every scan segment, so two runs of the same physics
     with different `chunk` are NOT bitwise identical — but their gap is
     bounded by the window approximation error (2nd order in the window
     length), and chunking is bitwise-irrelevant for taylor_every == 1.
     This test pins both halves of the contract (also documented in
     docs/INPUT.md under `taylor_every`)."""
-    from semiclassical_tpu.io import FormattedCheckpointFile
-    from semiclassical_tpu.potentials import MolecularGDMLPotential
+    from semiclassical_jax.io import FormattedCheckpointFile
+    from semiclassical_jax.potentials import MolecularGDMLPotential
 
     model_path = (ref_data / "GDML"
                   / "coumarin_forces_au-wB97XD_def2SVP-train200-sym1.npz")
@@ -742,7 +742,7 @@ def test_window_phase_chunk_dependence_is_bounded_contract(ref_data):
     def run(every, chunk):
         pot = MolecularGDMLPotential.create(
             model, exc, hessian_eval="taylor")
-        from semiclassical_tpu.pytree import replace
+        from semiclassical_jax.pytree import replace
         pot = replace(pot, taylor_every=every)
         prop = HermanKlukPropagator(Gamma0, Gamma0)
         prop.initial_conditions(x0, np.zeros_like(x0), Gamma0, ntraj=16,

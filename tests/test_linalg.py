@@ -2,11 +2,12 @@
 """Unit tests for linear-algebra helpers (oracle: scipy, numpy)."""
 
 import numpy as np
+import pytest
 import scipy.linalg as sla
 
 import jax.numpy as jnp
 
-from semiclassical_tpu import linalg
+from semiclassical_jax import linalg
 
 
 def test_sym_sqrtm_vs_scipy():
@@ -77,7 +78,7 @@ def test_batched_det_inv_complex():
 
 
 def test_schur_det_inv():
-    """Schur-recursion det/inv (the TPU path) vs LAPACK, incl. odd sizes."""
+    """Schur-recursion det/inv (the "jax" path) vs LAPACK, incl. odd sizes."""
     rng = np.random.default_rng(7)
     for r in (1, 2, 3, 5, 12, 60):
         A = (np.eye(r) + 0.5 * (rng.standard_normal((8, r, r))
@@ -93,42 +94,100 @@ def test_schur_det_inv():
         assert np.allclose(np.asarray(det2), np.linalg.det(A), rtol=1e-10), r
 
 
-def test_lu_det_inv():
-    """Hand-written batched LU with partial pivoting vs LAPACK."""
-    rng = np.random.default_rng(8)
-    A = (rng.standard_normal((16, 9, 9))
-         + 1j * rng.standard_normal((16, 9, 9)) + 2 * np.eye(9))
-    Aj = jnp.asarray(A)
-    assert np.allclose(np.asarray(linalg._det_jax(Aj)), np.linalg.det(A))
-    assert np.allclose(np.asarray(linalg._inv_jax(Aj)), np.linalg.inv(A),
-                       atol=1e-10)
+def _complex_batch(rng, shape, m):
+    """Well-conditioned complex128 matrices I + 0.5 N / sqrt(m)."""
+    return (np.eye(m) + 0.5 * (rng.standard_normal(shape + (m, m))
+                               + 1j * rng.standard_normal(shape + (m, m)))
+            / np.sqrt(m))
 
 
-def test_det_peel():
-    """Panel-peeling determinant vs LAPACK, including non-multiple sizes."""
-    rng = np.random.default_rng(9)
-    for r in (5, 12, 25, 60):
-        A = (np.eye(r) + 0.3 * (rng.standard_normal((8, r, r))
-                                + 1j * rng.standard_normal((8, r, r)))
-             / np.sqrt(r))
-        det = linalg._det_peel(jnp.asarray(A), b=12)
-        assert np.allclose(np.asarray(det), np.linalg.det(A), rtol=1e-10), r
+# (leading batch dims, matrix size): m = 1 and 2 are the closed-form bases
+# of the Schur recursion, 7 and 13 odd splits, two leading batch dims, and
+# the 45 / 60 production widths (coumarin rank, 60-mode AS model)
+_SHAPES = [((5,), 1), ((5,), 2), ((2, 3), 7), ((4,), 13), ((3,), 45),
+           ((2,), 60)]
 
 
-def test_pallas_det_lanes_interpret():
-    """The trajectory-in-lanes LU det kernel (TPU production path for
-    `batched_det`) against LAPACK in interpreter mode, complex64 accuracy."""
-    from semiclassical_tpu.ops import pallas_batched_det_lanes
+@pytest.fixture(params=["xla", "jax"])
+def impl(request):
+    old = linalg._LINALG_IMPL
+    linalg.set_linalg_impl(request.param)
+    yield request.param
+    linalg.set_linalg_impl(old)
 
-    rng = np.random.default_rng(10)
-    r, n = 12, 20  # n deliberately not a multiple of the tile (padding path)
-    A = (np.eye(r)[None] + 0.3 * (rng.standard_normal((n, r, r))
-                                  + 1j * rng.standard_normal((n, r, r)))
-         / np.sqrt(r))
-    det = np.asarray(pallas_batched_det_lanes(jnp.asarray(A, jnp.complex64),
-                                              tile=16))
-    ref = np.linalg.det(A)
-    assert np.abs(det - ref).max() / np.abs(ref).min() < 1e-4
+
+@pytest.mark.parametrize("batch,m", _SHAPES)
+def test_batched_det_inv_solve_vs_lapack(impl, batch, m):
+    """batched_det / _inv / _det_inv / _det_solve / _det_solve_t of each
+    implementation against numpy complex128."""
+    rng = np.random.default_rng(m)
+    A = _complex_batch(rng, batch, m)
+    B = (rng.standard_normal(batch + (m, 3))
+         + 1j * rng.standard_normal(batch + (m, 3)))
+    Aj, Bj = jnp.asarray(A), jnp.asarray(B)
+    ref_det = np.linalg.det(A)
+    ref_inv = np.linalg.inv(A)
+    np.testing.assert_allclose(linalg.batched_det(Aj), ref_det, rtol=1e-10)
+    np.testing.assert_allclose(linalg.batched_inv(Aj), ref_inv, atol=1e-10)
+    det, inv = linalg.batched_det_inv(Aj)
+    np.testing.assert_allclose(det, ref_det, rtol=1e-10)
+    np.testing.assert_allclose(inv, ref_inv, atol=1e-10)
+    det, Y = linalg.batched_det_solve(Aj, Bj)
+    np.testing.assert_allclose(det, ref_det, rtol=1e-10)
+    np.testing.assert_allclose(Y, np.linalg.solve(A, B), atol=1e-10)
+    det, Y = linalg.batched_det_solve_t(Aj, Bj)
+    np.testing.assert_allclose(det, ref_det, rtol=1e-10)
+    np.testing.assert_allclose(
+        Y, np.linalg.solve(np.swapaxes(A, -1, -2), B), atol=1e-10)
+
+
+@pytest.mark.parametrize("m1,m2", [(1, 2), (3, 4), (5, 5), (45, 45)])
+def test_batched_det_solve_blocks_vs_lapack(impl, m1, m2):
+    """The 2x2-blocked det + solve (the WM A-matrix form), including a
+    split at an odd width, against numpy on the assembled system."""
+    rng = np.random.default_rng(m1 + 10 * m2)
+    m = m1 + m2
+    A = _complex_batch(rng, (6,), m)
+    B = rng.standard_normal((6, m, 4)) + 1j * rng.standard_normal((6, m, 4))
+    det, Y = linalg.batched_det_solve_blocks(
+        *(jnp.asarray(x) for x in (A[:, :m1, :m1], A[:, :m1, m1:],
+                                   A[:, m1:, :m1], A[:, m1:, m1:],
+                                   B[:, :m1], B[:, m1:])))
+    np.testing.assert_allclose(det, np.linalg.det(A), rtol=1e-10)
+    np.testing.assert_allclose(Y, np.linalg.solve(A, B), atol=1e-10)
+
+
+def test_batched_det_complex64_pivoting():
+    """The "xla" path pivots: a matrix whose leading entry is zero (where
+    an unpivoted elimination divides by zero) still gets its det."""
+    A = np.array([[[0.0, 1.0, 2.0], [1.0, 0.0, 3.0], [4.0, 5.0, 0.0]]],
+                 dtype=np.complex64)
+    det = linalg._lu_det(jnp.asarray(A))[2]
+    np.testing.assert_allclose(det, np.linalg.det(A), rtol=1e-6)
+
+
+@pytest.mark.parametrize("backend", ["gpu", "cpu", "rocm"])
+def test_resolve_impl_auto_per_backend(monkeypatch, backend):
+    """`auto` is the pivoted-LU "xla" path on every backend (on the GPU it
+    was the faster of the two passing implementations for the det and the
+    blocked solve); an explicit choice or the module setting wins."""
+    monkeypatch.setattr(linalg.jax, "default_backend", lambda: backend)
+    assert linalg._resolve_impl("auto") == "xla"
+    assert linalg._resolve_impl("jax") == "jax"
+    assert linalg._resolve_impl("xla") == "xla"
+    monkeypatch.setattr(linalg, "_LINALG_IMPL", "jax")
+    assert linalg._resolve_impl() == "jax"
+    linalg.set_linalg_impl("auto")
+    assert linalg._resolve_impl() == "xla"
+
+
+@pytest.mark.parametrize("name", ["lanes", "pallas", "cuda"])
+def test_removed_impl_names_refused(monkeypatch, name):
+    with pytest.raises(ValueError, match="unknown batched linear-algebra"):
+        linalg.set_linalg_impl(name)
+    monkeypatch.setattr(linalg, "_LINALG_IMPL", name)
+    with pytest.raises(ValueError, match="expected one of"):
+        linalg.batched_det(jnp.eye(3, dtype=jnp.complex64)[None])
 
 
 def test_batched_mode_product():
@@ -136,14 +195,12 @@ def test_batched_mode_product():
     halving tree) vs the exact f64 product, both dtypes, odd mode counts,
     magnitudes spanning six decades, and an exact-zero factor.
 
-    Production note: measured on v5e this primitive LOST to the fused
-    log+arctan2 form inside the HK/WM diag scans (XLA fuses the
-    transcendentals into the surrounding elementwise chain; the tree
-    forces extra fusion boundaries), so the scans keep log space — this
-    gate keeps the primitive correct for range-critical uses."""
+    The HK/WM diag scans use the fused log+arctan2 form instead (XLA fuses
+    the transcendentals into the surrounding elementwise chain); this gate
+    keeps the primitive correct for range-critical uses."""
     import jax
 
-    from semiclassical_tpu.linalg import batched_mode_product
+    from semiclassical_jax.linalg import batched_mode_product
 
     rng = np.random.default_rng(7)
     for dtype, cd, tol in ((np.float32, jnp.complex64, 2e-5),

@@ -1,7 +1,7 @@
 # coding: utf-8
 """Device-side micro-batching (hk._micro_scan): the scan as a serialised
 lax.map over sub-batches — the WM production lever (the derived chain is
-HBM-roundtrip-bound and peaks at ntraj ~ 8192, BASELINE.md WM table).
+memory-bound, so its step intermediates stay at the sub-batch size).
 
 Contract: per-trajectory dynamics (state, trackers) are EXACTLY the
 monolithic ones — the trajectory pipelines are embarrassingly parallel and
@@ -15,8 +15,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from semiclassical_tpu.potentials import MorsePotential
-from semiclassical_tpu.propagation import (HermanKlukPropagator,
+from semiclassical_jax.potentials import MorsePotential
+from semiclassical_jax.propagation import (HermanKlukPropagator,
                                            WaltonManolopoulosPropagator)
 
 
@@ -106,7 +106,7 @@ def test_micro_through_cli_keyword(tmp_path, monkeypatch):
     run at f64 tolerance."""
     import json
 
-    from semiclassical_tpu import cli
+    from semiclassical_jax import cli
 
     monkeypatch.chdir(tmp_path)
     with open("AS_model.dat", "w") as f:

@@ -1,8 +1,7 @@
 # coding: utf-8
-"""Multi-process accumulation protocol gates (SURVEY §2.2 P2, VERDICT r4
-missing #1).
+"""Multi-process accumulation protocol gates (SURVEY §2.2 P2).
 
-The TPU-native scale-out path for ensembles beyond one process/host is the
+The scale-out path for ensembles beyond one process/host is the
 reference's own cross-process accumulation contract (reference
 cli.py:344-364, README.rst:111-115): cooperating ranks run independent
 batches and merge them into one results npz through the trajectory-weighted
@@ -56,13 +55,13 @@ def test_concurrent_accumulation_no_lost_update(tmp_path):
     """Two interpreters accumulate 25 single-trajectory batches each into
     the same npz at full speed; every batch must survive the interleaving
     and the weighted mean must come out exact."""
-    from semiclassical_tpu.io.results import init_results
+    from semiclassical_jax.io.results import init_results
 
     filename = str(tmp_path / "correlations.npz")
     times = np.linspace(0.0, 1.0, 4)
     init_results(filename, "HK", times, 0.0, 0.0)
 
-    results_py = str(REPO / "semiclassical_tpu" / "io" / "results.py")
+    results_py = str(REPO / "semiclassical_jax" / "io" / "results.py")
     reps = 25
     procs = [
         subprocess.Popen(
@@ -95,11 +94,11 @@ import json
 import sys
 
 sys.path.insert(0, sys.argv[1])
-from semiclassical_tpu.hostcache import disable_persistent_cache
+from semiclassical_jax.hostcache import disable_persistent_cache
 disable_persistent_cache()
 jax.config.update("jax_enable_x64", True)
 
-from semiclassical_tpu import cli
+from semiclassical_jax import cli
 
 with open(sys.argv[2]) as f:
     task = json.load(f)
@@ -152,7 +151,7 @@ def test_two_process_cli_accumulation(tmp_path, monkeypatch):
 
     # per-rank reference batches, reproduced in this process: the same
     # manual_seed + rank fold is deterministic across interpreters
-    from semiclassical_tpu import cli
+    from semiclassical_jax import cli
 
     own = []
     for rank in (0, 1):
@@ -178,7 +177,7 @@ def test_two_process_cli_accumulation(tmp_path, monkeypatch):
 def test_multiprocess_rank_helper(monkeypatch):
     import jax
 
-    from semiclassical_tpu.cli import _multiprocess_rank
+    from semiclassical_jax.cli import _multiprocess_rank
 
     monkeypatch.delenv("SEMI_PROCESS_ID", raising=False)
     assert _multiprocess_rank(jax) == (False, 0)

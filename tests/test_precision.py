@@ -1,8 +1,8 @@
 # coding: utf-8
 """float32/complex64 propagation vs float64 reference.
 
-The TPU backend has no complex128, so the production TPU path runs the scan
-in f32/c64 (with f64 host-side scalar factors and normalised MC weights).
+The accelerator default precision modes run the scan in f32/c64 (with f64
+host-side scalar factors and normalised MC weights).
 This gate checks that the reduced-precision correlations stay within a
 fraction of the Monte-Carlo noise floor of the f64 result on a multi-mode
 anharmonic model.
@@ -12,8 +12,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from semiclassical_tpu.potentials import MorsePotential
-from semiclassical_tpu.propagation import (
+from semiclassical_jax.potentials import MorsePotential
+from semiclassical_jax.propagation import (
     HermanKlukPropagator,
     WaltonManolopoulosPropagator,
 )
@@ -54,7 +54,7 @@ def test_f32_matches_f64(prop_cls, kwargs):
     # f32 trajectory rounding is amplified by the anharmonic dynamics
     # (trajectory-level chaos); after 100 steps the ensemble-level deviation
     # is a few percent at this batch size — same order as the Monte-Carlo
-    # statistical error. Production accuracy on TPU uses the mixed mode
+    # statistical error. Production accuracy on the GPU uses the mixed mode
     # (f64 trajectories + f32 monodromy/complex algebra).
     assert err_c < 5e-2, err_c
     assert err_k < 1e-1, err_k

@@ -11,8 +11,8 @@ Mirrors the accuracy gates of reference tests/test_propagators.py:116-328
 import numpy as np
 import pytest
 
-from semiclassical_tpu.potentials import NonHarmonicPotential
-from semiclassical_tpu.propagation import (
+from semiclassical_jax.potentials import NonHarmonicPotential
+from semiclassical_jax.propagation import (
     HermanKlukPropagator,
     WaltonManolopoulosPropagator,
 )
@@ -145,10 +145,9 @@ def test_wm_wavefunction_evolution_vs_qm(setup_1d):
 
 
 def test_wm_norm_impl_cross_check(setup_1d):
-    """wm_norm must give the same value on the Schur ('jax') path used on
-    TPU as on the LAPACK ('xla') path — the TPU numerics contract forbids
-    jnp.linalg.det/inv on complex batches (VERDICT round 1, weak #3)."""
-    from semiclassical_tpu import linalg as L
+    """wm_norm must give the same value on the Schur ('jax') path as on
+    the pivoted-LU ('xla') path — `auto` may pick either per backend."""
+    from semiclassical_jax import linalg as L
 
     s = setup_1d
     prop = WaltonManolopoulosPropagator(s["Gamma_i"], s["Gamma_i"],

@@ -4,8 +4,8 @@
 
 import numpy as np
 
-from semiclassical_tpu import units
-from semiclassical_tpu.analysis import (
+from semiclassical_jax import units
+from semiclassical_jax.analysis import (
     gaussian,
     lorentzian,
     rate_from_correlation,

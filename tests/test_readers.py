@@ -5,8 +5,8 @@
 import numpy as np
 import pytest
 
-from semiclassical_tpu import units
-from semiclassical_tpu.io import FormattedCheckpointFile
+from semiclassical_jax import units
+from semiclassical_jax.io import FormattedCheckpointFile
 
 
 @pytest.fixture(scope="module", params=["coumarin_s0.fchk", "coumarin_s1.fchk"])

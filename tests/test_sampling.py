@@ -5,7 +5,7 @@ at propagators.py:570-578; here they are asserted)."""
 import numpy as np
 import jax
 
-from semiclassical_tpu.sampling import SamplingParams, sample_initial_conditions
+from semiclassical_jax.sampling import SamplingParams, sample_initial_conditions
 
 
 def test_sampling_moments_full_rank():
@@ -44,7 +44,7 @@ def test_sampling_statistics_runtime_diagnostic(caplog):
     sampler and appear in the initial_conditions log."""
     import logging
 
-    from semiclassical_tpu.sampling import sampling_statistics
+    from semiclassical_jax.sampling import sampling_statistics
 
     d = 2
     G0 = np.diag([1.0, 0.6])
@@ -58,8 +58,8 @@ def test_sampling_statistics_runtime_diagnostic(caplog):
 
     # surfaced at run time by initial_conditions (reference
     # propagators.py:570-578)
-    from semiclassical_tpu.potentials import MorsePotential
-    from semiclassical_tpu.propagation import HermanKlukPropagator
+    from semiclassical_jax.potentials import MorsePotential
+    from semiclassical_jax.propagation import HermanKlukPropagator
 
     pot = MorsePotential.create(np.array([0.01, 0.008]),
                                 np.array([0.02, 0.02]),

@@ -1,6 +1,6 @@
 # coding: utf-8
 """Variance-reduced initial-condition sampling (antithetic pairs and
-scrambled-Sobol QMC; VERDICT r4 next #2).
+scrambled-Sobol QMC).
 
 BEYOND-reference capability: the reference samples with a plain torch
 pseudo-random stream (reference propagators.py:537-555). Both
@@ -28,10 +28,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from semiclassical_tpu import units
-from semiclassical_tpu.potentials import MorsePotential
-from semiclassical_tpu.propagation import HermanKlukPropagator
-from semiclassical_tpu.sampling import (SamplingParams,
+from semiclassical_jax import units
+from semiclassical_jax.potentials import MorsePotential
+from semiclassical_jax.propagation import HermanKlukPropagator
+from semiclassical_jax.sampling import (SamplingParams,
                                         sample_initial_conditions,
                                         sampling_statistics)
 
@@ -152,8 +152,7 @@ def test_measured_variance_reduction():
     Scrambled-Sobol realizations are mutually independent (independent
     scrambles), so the across-key variance is an unbiased estimate of each
     estimator's MC variance; deterministic keys make the measured ratios
-    reproducible. Measured on this 5-mode oracle (10 keys x 1024 traj,
-    recorded in BASELINE.md):
+    reproducible. Measured on this 5-mode oracle (10 keys x 1024 traj):
 
         var(C)      pseudo 1.60e-4 | antithetic 1.70e-5 (9.4x)
                     | sobol 6.33e-7 (253x)
@@ -199,7 +198,7 @@ def test_antithetic_error_bars_pair_folding():
     (the autocorrelation — measured 9.4x variance reduction above) and
     LARGER where they correlate positively (k~ic — measured 0.76x); the
     i.i.d. formula would misreport both."""
-    from semiclassical_tpu.propagation.hk import _hk_scan_jit
+    from semiclassical_jax.propagation.hk import _hk_scan_jit
 
     omega, dQ, pot, times, nt, _ = _harmonic_as()
     Gamma = np.diag(omega)
@@ -256,7 +255,7 @@ def test_antithetic_micro_batch_odd_subbatch_rejected():
 
 
 def test_cli_sampling_keyword(tmp_path, monkeypatch):
-    from semiclassical_tpu import cli
+    from semiclassical_jax import cli
 
     model_file = tmp_path / "AS_model.dat"
     model_file.write_text("1500.0  0.1  0.5  0.00\n")
@@ -275,7 +274,7 @@ def test_cli_sampling_keyword(tmp_path, monkeypatch):
         "error_bars": True,
         "results": {"correlations": str(tmp_path / "correlations.npz")},
     }
-    from semiclassical_tpu.config import validate_task
+    from semiclassical_jax.config import validate_task
     validate_task(task)
     cli.run_semiclassical_dynamics(task)
     data = np.load(tmp_path / "correlations.npz")

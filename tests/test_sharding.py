@@ -8,9 +8,9 @@ The SURVEY test plan calls for identical-results tests across shardings
 import numpy as np
 import jax
 
-from semiclassical_tpu.parallel import ensemble_mesh
-from semiclassical_tpu.potentials import MorsePotential, NonHarmonicPotential
-from semiclassical_tpu.propagation import (
+from semiclassical_jax.parallel import ensemble_mesh
+from semiclassical_jax.potentials import MorsePotential, NonHarmonicPotential
+from semiclassical_jax.propagation import (
     HermanKlukPropagator,
     WaltonManolopoulosPropagator,
 )
@@ -117,7 +117,7 @@ def test_sharded_multimode():
 
 
 def test_non_divisible_ntraj_rounds_up_with_true_weights():
-    """VERDICT r3 gap: ntraj % n_devices != 0. The sampler rounds the
+    """ntraj % n_devices != 0. The sampler rounds the
     count UP to a mesh multiple with REAL extra samples (not zero
     padding), so the MC weight convention 1/(n P (2 pi hbar)^d)
     (reference propagators.py:555) uses the true, rounded n — the

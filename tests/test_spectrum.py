@@ -19,7 +19,7 @@ import os
 import numpy as np
 import pytest
 
-from semiclassical_tpu.analysis import gaussian, spectrum_from_correlation
+from semiclassical_jax.analysis import gaussian, spectrum_from_correlation
 
 OMEGA = 0.01        # Hartree
 S_HR = 1.3          # Huang-Rhys factor
@@ -95,7 +95,7 @@ def synthetic_npz(tmp_path):
 
 
 def test_cli_spectrum_task(synthetic_npz, monkeypatch, capsys):
-    from semiclassical_tpu import cli, units
+    from semiclassical_jax import cli, units
 
     monkeypatch.chdir(synthetic_npz)
     config = {"semi": [{
@@ -130,7 +130,7 @@ def test_fourier_stderr_matches_empirical_spread():
     spread of Re S(E) when the correlation carries iid isotropic complex
     noise with known per-step stderr (the transform is linear, so under
     that error model the propagation is exact and E-independent)."""
-    from semiclassical_tpu.analysis import fourier_stderr
+    from semiclassical_jax.analysis import fourier_stderr
 
     rng = np.random.default_rng(3)
     nt = 512
@@ -163,7 +163,7 @@ def test_fourier_stderr_matches_empirical_spread():
 def test_cli_spectrum_output_key_alias(synthetic_npz, monkeypatch):
     """`spectrum` is accepted as an alias for the `spectra` output-file
     keyword (the task's own name, like the rates task's `rates` key)."""
-    from semiclassical_tpu import cli
+    from semiclassical_jax import cli
 
     monkeypatch.chdir(synthetic_npz)
     config = {"semi": [{"task": "spectrum", "spectrum": "out.npz"}]}
@@ -179,8 +179,8 @@ def test_cli_stderr_propagates_to_rate_and_spectrum(synthetic_npz,
     """With per-step stderr stored (error_bars dynamics), the rates and
     spectrum tasks store the propagated scalar bands — and accumulating
     new dynamics invalidates them with the other derived keys."""
-    from semiclassical_tpu import cli
-    from semiclassical_tpu.io import results
+    from semiclassical_jax import cli
+    from semiclassical_jax.io import results
 
     monkeypatch.chdir(synthetic_npz)
     data = dict(np.load("correlations.npz"))
@@ -216,8 +216,8 @@ def test_cli_stderr_propagates_to_rate_and_spectrum(synthetic_npz,
 def test_new_dynamics_invalidates_spectrum(synthetic_npz, monkeypatch):
     """Accumulating new dynamics into the npz must drop the stale derived
     spectrum (same protocol as ic_rate, reference cli.py:473-474)."""
-    from semiclassical_tpu import cli
-    from semiclassical_tpu.io import results
+    from semiclassical_jax import cli
+    from semiclassical_jax.io import results
 
     monkeypatch.chdir(synthetic_npz)
     config = {"semi": [{"task": "spectrum"}]}
@@ -237,7 +237,7 @@ def test_new_dynamics_invalidates_spectrum(synthetic_npz, monkeypatch):
 
 
 def test_spectrum_task_validates():
-    from semiclassical_tpu.config import ConfigurationError, validate_task
+    from semiclassical_jax.config import ConfigurationError, validate_task
 
     validate_task({"task": "spectrum"})
     validate_task({"task": "spectrum", "broadening": "lorentzian",

@@ -23,10 +23,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from semiclassical_tpu.potentials import MorsePotential
-from semiclassical_tpu.propagation import HermanKlukPropagator
-from semiclassical_tpu.propagation.hk import hk_autocorr_qp, hk_prefactor_det
-from semiclassical_tpu.propagation.state import TrajState
+from semiclassical_jax.potentials import MorsePotential
+from semiclassical_jax.propagation import HermanKlukPropagator
+from semiclassical_jax.propagation.hk import hk_autocorr_qp, hk_prefactor_det
+from semiclassical_jax.propagation.state import TrajState
 
 REFERENCE_PATH = "/root/reference"
 
@@ -107,7 +107,7 @@ def test_per_step_parity_hk(torch_reference):
                             potential=pot)
     # inject the fixed points: new state + rebuilt batch constants with
     # uniform density P = 1 (matching ref.probi = 1 above)
-    from semiclassical_tpu.propagation.hk import hk_batch_constants
+    from semiclassical_jax.propagation.hk import hk_batch_constants
 
     prop.state = TrajState.initial(jnp.asarray(qi), jnp.asarray(pi))
     prop._bc = hk_batch_constants(prop.params, prop.state.q, prop.state.p,
@@ -171,8 +171,8 @@ def test_per_step_parity_wm(torch_reference):
     finally:
         sys.path.pop(0)
 
-    from semiclassical_tpu.propagation import WaltonManolopoulosPropagator
-    from semiclassical_tpu.propagation.wm import (
+    from semiclassical_jax.propagation import WaltonManolopoulosPropagator
+    from semiclassical_jax.propagation.wm import (
         wm_autocorr_qp,
         wm_batch_constants,
         wm_derived,

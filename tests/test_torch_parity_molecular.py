@@ -23,11 +23,11 @@ import pytest
 import jax.numpy as jnp
 
 
-from semiclassical_tpu.io.fchk import FormattedCheckpointFile
-from semiclassical_tpu.potentials import MolecularHarmonicPotential
-from semiclassical_tpu.propagation import HermanKlukPropagator
-from semiclassical_tpu.propagation.hk import hk_autocorr_qp, hk_prefactor_det
-from semiclassical_tpu.propagation.state import TrajState
+from semiclassical_jax.io.fchk import FormattedCheckpointFile
+from semiclassical_jax.potentials import MolecularHarmonicPotential
+from semiclassical_jax.propagation import HermanKlukPropagator
+from semiclassical_jax.propagation.hk import hk_autocorr_qp, hk_prefactor_det
+from semiclassical_jax.propagation.state import TrajState
 
 REFERENCE_PATH = "/root/reference"
 NSTEPS = 8
@@ -159,7 +159,7 @@ def test_per_step_parity_molecular(torch_reference_molecular):
     ref.sign_trackers = {}
     ref._prefactor()
 
-    from semiclassical_tpu.propagation.hk import hk_batch_constants
+    from semiclassical_jax.propagation.hk import hk_batch_constants
 
     prop = HermanKlukPropagator(Gamma_0, Gamma_0)
     prop.initial_conditions(x0, np.zeros(d), Gamma_0, ntraj=n, key=0,

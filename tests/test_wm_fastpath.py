@@ -7,15 +7,15 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from semiclassical_tpu.potentials import MorsePotential
-from semiclassical_tpu.propagation import WaltonManolopoulosPropagator
-from semiclassical_tpu.propagation.wm import (
+from semiclassical_jax.potentials import MorsePotential
+from semiclassical_jax.propagation import WaltonManolopoulosPropagator
+from semiclassical_jax.propagation.wm import (
     wm_derived,
     wm_observables,
     wm_scan_derived,
     wm_scan_observables,
 )
-from semiclassical_tpu.units import hbar
+from semiclassical_jax.units import hbar
 
 
 def _setup(with_zero_modes):
@@ -106,7 +106,7 @@ def test_diag_path_matches_generic():
     generic projected-2r evaluation field by field: the basis change U is
     orthogonal and the balancing is det-preserving, so the only differences
     are rounding."""
-    from semiclassical_tpu.pytree import replace
+    from semiclassical_jax.pytree import replace
 
     prop, pot = _setup(with_zero_modes=False)
     params, bc, state = prop.params, prop._bc, prop.state
@@ -127,7 +127,7 @@ def test_diag_path_full_scan_equivalence():
     """End to end: the jitted WM scan with the diag path produces the same
     correlation functions as the generic fast path over a time horizon long
     enough to cross sqrt branch cuts."""
-    from semiclassical_tpu.pytree import replace
+    from semiclassical_jax.pytree import replace
 
     rng = np.random.default_rng(11)
     d = 6
